@@ -1,14 +1,15 @@
-"""qvz_tpu — a TPU-native quality-value compression engine.
+"""qvz_tpu — an accelerator-native quality-value compression engine.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the QVZ
+A from-scratch JAX/XLA framework with the capabilities of the QVZ
 quality-score codec (k-means read clustering, first-order Markov context
 modeling, Lloyd-Max distortion-optimized quantizer design with stochastic
 dithering, and context-adaptive arithmetic coding), producing bitstreams
 that are byte-identical to the reference format.
 
 Architecture:
-  * Heavy O(reads x columns) passes run on TPU via JAX/XLA
-    (clustering, conditional histograms, batched quantization).
+  * Heavy O(reads x columns) passes run on the GPU via JAX/XLA
+    (clustering, conditional histograms, batched quantization, the
+    lane-parallel entropy coder and decoder).
   * Exact-semantics host runtime (WELL-1024a, Lloyd-Max codebook design,
     adaptive arithmetic coding) is native C++ reached through ctypes, with
     bit-identical pure-Python specification implementations used as test

@@ -27,6 +27,7 @@ from qvz_tpu.constants import (  # noqa: F401  (re-exported)
 )
 from qvz_tpu.ops.distortion import make_matrix
 from qvz_tpu.ops.well import WellState
+from qvz_tpu.utils.compile_cache import enable_compile_cache
 
 
 def _well(seed: bytes | None, debug: bool) -> WellState:
@@ -58,6 +59,7 @@ def compress_bytes(data: bytes, *, mode: int = MODE_RATIO,
     from qvz_tpu.pipeline import encode as enc_mod
     from qvz_tpu.spec.pipeline import load_quality_file
 
+    enable_compile_cache()
     arr = load_quality_file(data)
     dist = make_matrix(distortion, path=distortion_file)
     out = enc_mod.encode(arr, dist, n_clusters=clusters, mode=mode,
@@ -75,6 +77,7 @@ def decompress_bytes(container: bytes,
     device=True decodes QVZ2 shards in accelerator lanes (byte-equal to
     the host decoder; see pipeline.decode.decode)."""
     from qvz_tpu.pipeline import decode as dec_mod
+    enable_compile_cache()
     return dec_mod.decode(container, device=device).tobytes()
 
 
@@ -104,6 +107,7 @@ def compress(input_path: str, output_path: str, **kwargs):
     from qvz_tpu.pipeline import encode as enc_mod
     from qvz_tpu.spec.pipeline import load_quality_file
 
+    enable_compile_cache()
     arr = load_quality_file(input_path)
     dist = make_matrix(kwargs.pop("distortion", DISTORTION_MSE),
                        path=kwargs.pop("distortion_file", None))
@@ -127,5 +131,6 @@ def decompress(input_path: str, output_path: str,
     """File-to-file decompression (memory-mapped both ways). Returns
     the number of lines. device= as in decompress_bytes."""
     from qvz_tpu.pipeline import decode as dec_mod
+    enable_compile_cache()
     return dec_mod.decode_file_to_file(input_path, output_path,
                                        device=device)

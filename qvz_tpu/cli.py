@@ -51,7 +51,8 @@ def usage(name: str) -> None:
     print("   --debug-seed : Use the fixed WELL seed (reproducible bitstreams)")
     print("   --well-state F : Load a raw 128-byte WELL state from F")
     print("   --no-jax     : Force the host-only pipeline (no accelerator)")
-    print("   --jax        : Force the device pipeline (default: auto by input size);")
+    print("   --jax        : Force the device pipeline (default: auto by input size")
+    print("                  on a GPU backend);")
     print("                  with -x, decode QVZ2 shards in device lanes")
     print("   --reuse-books F : Reuse the codebooks of a previous compressed file F")
     print("                  (skips the statistics + design phases)")
@@ -69,11 +70,11 @@ def usage(name: str) -> None:
     print("                  QVZ_TPU_STREAM_MIN_BYTES, default 1 GiB;")
     print("                  composes with --hosts N: workers stream their")
     print("                  row ranges, container assembles straight to disk)")
-    print(" Env knobs: QVZ_TPU_DEVICE_MIN_BYTES (auto device dispatch size),")
-    print("   QVZ_TPU_DEVICE_CODER / QVZ_TPU_CODER_PALLAS / QVZ_TPU_CODER_BATCH")
-    print("   (device entropy encoder), QVZ_TPU_DEVICE_DECODE /")
-    print("   QVZ_TPU_DEC_PALLAS / QVZ_TPU_DEC_WAVE (device entropy decoder),")
-    print("   QVZ_TPU_DEVICE_LANES (device shard plan)")
+    print(" Env knobs: QVZ_TPU_DEVICE_MIN_BYTES (auto device dispatch size,")
+    print("   GPU backends only), QVZ_TPU_DEVICE_CODER (device entropy")
+    print("   encoder), QVZ_TPU_DEVICE_DECODE / QVZ_TPU_DEC_WAVE (device")
+    print("   entropy decoder), QVZ_TPU_DEVICE_LANES (device shard plan),")
+    print("   JAX_COMPILATION_CACHE_DIR (default: build/jax_cache)")
 
 
 def _make_well(opts) -> WellState:
@@ -234,10 +235,14 @@ def _parse_and_dispatch(argv, name, opts, i) -> int:
                   f"{opts['cluster_threshold']:.0f}.")
 
     import contextlib
+
+    from qvz_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     profiled = contextlib.nullcontext()
     if opts.get("profile_dir") and os.environ.get("QVZ_TPU_JAX_TRACE"):
-        # Full XLA trace is opt-in: jax.profiler hangs on some managed
-        # TPU runtimes; the default --profile output is the phase-level
+        # The full jax.profiler trace is opt-in (it is large and slows
+        # the host); the default --profile output is the phase-level
         # timing JSON written by _run.
         import jax
         profiled = jax.profiler.trace(opts["profile_dir"])
@@ -350,7 +355,7 @@ def _run(opts, extract, input_name, output_name) -> int:
             ratio=opts["ratio"],
             cluster_threshold=opts["cluster_threshold"],
             well_state=_make_well(opts), dist_matrix=dist,
-            use_jax=opts["use_jax"] is True, prime=opts["prime"],
+            prime=opts["prime"],
             recon_path=opts.get("uncompressed"),
             verbose=opts["verbose"],
             streaming=mh_streaming,
@@ -411,6 +416,7 @@ def _run(opts, extract, input_name, output_name) -> int:
             "total_seconds": elapsed,
             "phase_seconds": out.stats.phase_seconds,
             "device_seconds": out.stats.device_seconds,
+            "coder_fallback_lanes": out.stats.coder_fallback_lanes,
             "throughput_MBps": out.stats.lines
             * (out.stats.columns + 1) / max(elapsed, 1e-9) / 1e6,
         }, indent=2))

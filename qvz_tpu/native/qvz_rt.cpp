@@ -11,7 +11,8 @@
 //     src/qv_stream.c, src/os_stream.c)
 //
 // The heavy O(reads x columns) modeling passes (clustering, histograms,
-// quantization) run on TPU via JAX; this library consumes their outputs.
+// quantization) run on the accelerator via JAX; this library consumes
+// their outputs.
 //
 // Bit-exactness notes: compile WITHOUT -march=native and WITH
 // -ffp-contract=off so no FMA contraction changes double rounding; libm
@@ -1418,7 +1419,7 @@ uint64_t qvz_tables_bank_words(void* h) {
 const uint8_t* qvz_tables_qv_map(void* h) { return static_cast<Tables*>(h)->qv_map.data(); }
 const uint8_t* qvz_tables_qs_map(void* h) { return static_cast<Tables*>(h)->qs_map.data(); }
 
-// --- quantization (host fallback; the production path runs on TPU) -------
+// --- quantization (host path; the device path is ops/quantize.py) --------
 
 void qvz_quantize(void* tables, const uint8_t* data, uint64_t n_lines,
                   const uint8_t* cluster_ids, const uint8_t* draws,
@@ -2322,7 +2323,7 @@ int32_t qvz_decode_lines(void* tables, const uint8_t* payload,
     // Reference prints at lineCtr 0, 1M, ...; the special-cased final
     // line ALSO prints when (lines-1) % 1e6 == 0 (qv_compressor.c:196-198
     // repeats the in-loop print before the last line), so no last-line
-    // suppression here (ADVICE r3: the old `i + 1 < n_lines` guard
+    // suppression here (the old `i + 1 < n_lines` guard
     // diverged at n_lines == k*1e6 + 1).
     if (verbose && i % 1000000 == 0) {
       printf("Line: %dM\n", static_cast<int>(i / 1000000));

@@ -1,12 +1,11 @@
 """k-means read clustering on device (reference: src/cluster.c).
 
 Bitstream parity requires exact integer semantics (see spec/kmeans.py).
-Everything on device is int32 so results are bit-identical to the
-reference: squared-L2 distances expanded as ||x||^2 - 2 x.m + ||m||^2
-with int8 matmuls on the MXU, first-minimum argmin assignment, integer
-segment-sum accumulators and integer-division centroid updates. The
-convergence loop runs on host (data-dependent trip count), one jitted
-step per iteration.
+Everything on device is integer so results are bit-identical to the
+reference: exact int32 squared-L2 distances, first-minimum
+assignment, integer segment-sum accumulators and integer-division
+centroid updates. The convergence loop runs on host (data-dependent
+trip count), one jitted step per iteration.
 """
 
 from __future__ import annotations
@@ -22,23 +21,29 @@ from qvz_tpu.utils.glibc_rand import GlibcRand
 from qvz_tpu.spec.kmeans import seed_centroids
 
 
+def first_min_assign(data_i32: jnp.ndarray, means: jnp.ndarray):
+    """Nearest centroid per read, lowest index on ties (the reference's
+    strict-< scan, cluster.c:158-163; argmin returns the first
+    minimum). data_i32: (N, cols); means: (K, cols) int32.
+
+    Exact int32 squared distances, summed elementwise: K <= 5, so a
+    matrix product buys nothing, and on an H100 (XLA of jax 0.9.0) the
+    former ||x||^2 - 2 x.m + ||m||^2 form, with x.m as an int8 matrix
+    product, returned inexact distances at some read counts (3703, 3707
+    and 3708 of one 101-column input) and exact ones at others."""
+    dist = jnp.sum(jnp.square(data_i32[:, None, :] - means[None, :, :]),
+                   axis=2, dtype=jnp.int32)                    # (N, K)
+    return jnp.argmin(dist, axis=1).astype(jnp.int32)
+
+
 @partial(jax.jit, static_argnames=("n_clusters",))
 def _kmeans_step(data_u8: jnp.ndarray, means: jnp.ndarray,
                  n_clusters: int):
     """One Lloyd iteration. data_u8: (N, cols) uint8 (raw symbols,
     transferred once and widened on device); means: (K, cols) int32.
     Returns (assign (N,) int32, new_means, moved (f32 scalar))."""
-    data_i8 = data_u8.astype(jnp.int8)   # symbols < 72 fit int8 exactly
     data_i32 = data_u8.astype(jnp.int32)
-    x_sq = jnp.sum(data_i32 * data_i32, axis=1, dtype=jnp.int32)
-    m_i8 = means.astype(jnp.int8)
-    # -2 x.m term: int8 x int8 -> int32 exact on the MXU.
-    xm = jax.lax.dot_general(
-        data_i8, m_i8.T, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32)  # (N, K)
-    m_sq = jnp.sum(means * means, axis=1, dtype=jnp.int32)  # (K,)
-    dist = x_sq[:, None] - 2 * xm + m_sq[None, :]
-    assign = jnp.argmin(dist, axis=1).astype(jnp.int32)  # first min wins
+    assign = first_min_assign(data_i32, means)
 
     counts = jax.ops.segment_sum(
         jnp.ones_like(assign), assign, num_segments=n_clusters)
@@ -49,13 +54,6 @@ def _kmeans_step(data_u8: jnp.ndarray, means: jnp.ndarray,
     diff = (new_means - means).astype(jnp.float32)
     moved = jnp.max(jnp.sum(diff * diff, axis=1))
     return assign, new_means, moved
-
-
-def _use_pallas() -> bool:
-    import os
-    if os.environ.get("QVZ_TPU_NO_PALLAS"):
-        return False
-    return jax.default_backend() == "tpu"
 
 
 def kmeans_cluster(data: np.ndarray, n_clusters: int, threshold: float,
@@ -70,33 +68,6 @@ def kmeans_cluster(data: np.ndarray, n_clusters: int, threshold: float,
 
     means_np = seed_centroids(data, n_clusters, rand,
                               verbose=verbose).astype(np.int64)
-
-    if _use_pallas():
-        from qvz_tpu.ops import pallas_kernels as pk
-        dp = jnp.asarray(pk.pad_rows(data), dtype=jnp.uint8)
-        assign = None
-        iters = 0
-        while iters < MAX_KMEANS_ITERATIONS:
-            assign, sums, counts = pk.kmeans_step_fused(
-                dp, jnp.asarray(means_np, dtype=jnp.int32),
-                jnp.int32(n), n_clusters)
-            iters += 1
-            s = np.asarray(sums, dtype=np.int64)
-            c = np.asarray(counts, dtype=np.int64)
-            # Integer-division discrete means (cluster.c:113); empty
-            # clusters guarded (reference would SIGFPE).
-            new_means = s // np.maximum(c, 1)[:, None]
-            diff = (new_means - means_np).astype(np.float64)
-            moved = float((diff * diff).sum(axis=1).max())
-            if verbose:
-                spec_kmeans.verbose_iteration(means_np, new_means)
-            means_np = new_means
-            if moved <= threshold:
-                break
-        if verbose:
-            spec_kmeans.verbose_total(iters)
-        return (np.asarray(assign, dtype=np.uint8)[:n],
-                means_np.astype(np.uint8), iters)
 
     data_u8 = jnp.asarray(data, dtype=jnp.uint8)
     means = jnp.asarray(means_np, dtype=jnp.int32)

@@ -3,8 +3,9 @@
 `parallel/multihost.py` moves statistics between processes over a
 socket control plane; this module runs the SAME integer reductions as
 JAX collectives over a GLOBAL device mesh spanning processes — the
-deployment shape for TPU pod slices (one process per host, collectives
-over ICI within a slice and DCN across hosts).
+deployment shape for multi-node clusters (one process per host,
+collectives over the cards' interconnect within a node and the network
+across nodes).
 
 Verified live in tests/test_distributed.py: two OS processes, each with
 4 virtual CPU devices, form an 8-device global mesh; per-process read
@@ -12,7 +13,7 @@ shards reduce with `psum` (gloo CPU collectives) and both processes
 derive bit-identical global statistics — and therefore bit-identical
 codebooks — matching the single-process result.
 
-Notes for TPU pods: call initialize() (or let the launcher set
+Notes for multi-node runs: call initialize() (or let the launcher set
 JAX_COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID and use
 initialize_from_env()) before any JAX computation; the mesh covers
 jax.devices() (global), data is placed with

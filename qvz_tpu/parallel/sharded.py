@@ -19,48 +19,23 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from qvz_tpu.constants import ALPHABET_SIZE
+from qvz_tpu.ops.kmeans import first_min_assign
+from qvz_tpu.ops.stats import cond_hist
 from qvz_tpu.parallel.mesh import READS_AXIS, pad_to_multiple
 
 A = ALPHABET_SIZE
 
 
 def _local_hist(data_t, clusters, valid, n_clusters):
-    """Shard-local histograms; see ops/stats.py for the kernel shape."""
-    ca = n_clusters * A
-    n = data_t.shape[1]
-    base = clusters * A
-    cluster_rows = jnp.arange(ca, dtype=jnp.int32)
-    sym_cols = jnp.arange(A, dtype=jnp.int32)
-
-    idx0 = jnp.where(valid, base + data_t[0], ca)  # pad rows -> dummy seg
-    counts0 = jax.ops.segment_sum(
-        jnp.ones((n,), dtype=jnp.int32), idx0,
-        num_segments=ca + 1)[:ca].reshape(n_clusters, A)
-
-    def step(carry, cols_pair):
-        prev_col, cur_col = cols_pair
-        prev_oh = ((base + prev_col)[:, None] == cluster_rows[None, :])
-        prev_oh = (prev_oh & valid[:, None]).astype(jnp.int8)
-        cur_oh = (cur_col[:, None] == sym_cols[None, :]).astype(jnp.int8)
-        h = jax.lax.dot_general(
-            prev_oh, cur_oh, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32)
-        return carry, h
-
-    _, cond = jax.lax.scan(step, 0, (data_t[:-1], data_t[1:]))
-    return counts0, cond
+    """Shard-local histograms (ops/stats.cond_hist); padded rows
+    (valid = False) count nowhere."""
+    return cond_hist(data_t.T, clusters, n_clusters, valid)
 
 
 def _local_kmeans_assign(data_t, means, valid, n_clusters):
     """Shard-local assignment + accumulators (exact integers)."""
     d = data_t.T.astype(jnp.int32)  # (n, cols)
-    x_sq = jnp.sum(d * d, axis=1, dtype=jnp.int32)
-    xm = jax.lax.dot_general(
-        d.astype(jnp.int8), means.astype(jnp.int8).T,
-        (((1,), (0,)), ((), ())), preferred_element_type=jnp.int32)
-    m_sq = jnp.sum(means * means, axis=1, dtype=jnp.int32)
-    dist = x_sq[:, None] - 2 * xm + m_sq[None, :]
-    assign = jnp.argmin(dist, axis=1).astype(jnp.int32)
+    assign = first_min_assign(d, means)
     seg = jnp.where(valid, assign, n_clusters)
     counts = jax.ops.segment_sum(
         jnp.ones_like(assign), seg, num_segments=n_clusters + 1)[:-1]

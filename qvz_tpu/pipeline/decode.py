@@ -26,7 +26,7 @@ def _malformed_raises_valueerror(fn):
     (codebook.c:560-586 trusts every byte); converging on one exception
     type is what makes ours testable and catchable.
 
-    MemoryError/OverflowError are NOT converted here (ADVICE r3): a
+    MemoryError/OverflowError are NOT converted here: a
     host OOM while decoding a large, VALID container is a resource
     failure, not corruption, and must surface as MemoryError. Those two
     are converted only inside `_parsing()` blocks, where absurd claimed
@@ -288,17 +288,20 @@ def _decode_v2_device(compressed, head, tables, out, offs) -> np.ndarray:
 
     import os as _os
 
-    # lanes decode in waves: bounds host memory for the per-shard draw
-    # matrices (a whole-genome container's draws are the full quality
-    # matrix) and keeps the jit cache on one (W, L) shape per group
-    wave = int(_os.environ.get("QVZ_TPU_DEC_WAVE", "64"))
+    # lanes decode in waves of ~2^28 symbols: bounds host and device
+    # memory for the per-shard draw matrices (a whole-genome
+    # container's draws are the full quality matrix) and keeps the jit
+    # cache on one (W, L) shape per group; QVZ_TPU_DEC_WAVE overrides
+    # the lanes per wave
+    wave = int(_os.environ.get("QVZ_TPU_DEC_WAVE", "0"))
     fallback: list[tuple[int, bytes]] = []
     dplan = None
     with ThreadPoolExecutor(
             max_workers=min(8, _os.cpu_count() or 1)) as ex:
         for L, idxs in groups.items():
-            for w0i in range(0, len(idxs), wave):
-                wv = idxs[w0i:w0i + wave]
+            lanes = wave or max(1, (1 << 28) // (L * cols))
+            for w0i in range(0, len(idxs), lanes):
+                wv = idxs[w0i:w0i + lanes]
                 pa = list(ex.map(prep_a, wv))
                 if dplan is None:
                     # first wave's prep overlapped the warmup decode

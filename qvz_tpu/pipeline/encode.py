@@ -1,11 +1,12 @@
 """Production encoder pipeline.
 
 Phase structure mirrors the reference driver (src/main.c:18-127) with the
-heavy per-read passes on TPU and exact-semantics host steps in C++:
+heavy per-read passes on the accelerator and exact-semantics host steps
+in C++:
 
   1. load quality file                      (numpy, host)
-  2. k-means clustering                     (Pallas on device; C++ fallback)
-  3. conditional statistics                 (JAX on device; C++ fallback)
+  2. k-means clustering                     (JAX on device, or C++)
+  3. conditional statistics                 (JAX on device, or C++)
   4. codebook design                        (C++, exact doubles)
   5. fused quantize + WELL dither + coding  (C++, single sequential pass)
   6. container assembly                     (host)
@@ -44,7 +45,7 @@ class EncodeStats:
     # Seconds per phase that executed on the accelerator (subset of
     # phase_seconds, incl. host<->device transfer). Phases absent here
     # ran entirely on host — makes the device/host split visible to
-    # --profile consumers (VERDICT r1 weak item 10).
+    # --profile consumers.
     device_seconds: dict = field(default_factory=dict)
     # Device-coder lanes that fell back to host coding (rescale inside
     # a column model / oversize emission — exactness checks, rare).
@@ -67,10 +68,15 @@ def _device_coder_enabled() -> bool:
 
 def _device_worthwhile(n_bytes: int) -> bool:
     """Auto-dispatch policy: run the batched passes on the accelerator
-    only when the input is large enough to amortize host<->device
-    transfer and compile latency; below the threshold the C++ host
-    kernels win. Tunable per deployment via QVZ_TPU_DEVICE_MIN_BYTES
-    (bytes; 0 forces the device path on)."""
+    only when JAX's default backend is a GPU and the input is large
+    enough to amortize host<->device transfer and compile latency;
+    below the threshold, and on a CPU-only backend, the C++ host engine
+    wins. The size threshold is tunable per deployment via
+    QVZ_TPU_DEVICE_MIN_BYTES (bytes)."""
+    import jax
+
+    if jax.default_backend() != "gpu":
+        return False
     thresh = int(os.environ.get("QVZ_TPU_DEVICE_MIN_BYTES", 256 * 2**20))
     return n_bytes >= thresh
 
@@ -149,16 +155,13 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
         use_jax = mesh is not None or _device_worthwhile(data.nbytes)
     if shards == 0:
         # shards=0 = "pick for the execution engine": host coding wants
-        # one stream per core; the device coder wants enough lanes to
-        # fill the VPU's 128-wide vector registers and shrink the
-        # sequential scan (measured on v5e: 32 lanes 53 Msym/s, 1024
-        # lanes 280 Msym/s pass-2). Priming keeps the per-shard rate
-        # cost ~zero, so lanes are nearly free; floor of 256 lines per
-        # lane bounds padding + per-lane flush overhead.
+        # one stream per core; the device coder wants many lanes, which
+        # shrink its sequential scan. Priming keeps the per-shard rate
+        # cost ~zero, so lanes are nearly free; a floor of 256 lines
+        # per lane bounds padding + per-lane flush overhead. This
+        # formula fixes the `--shards 0` container layout, so it stays
+        # as it is until a benchmark cell justifies another.
         if use_jax and _device_coder_enabled():
-            # lane-run cap 2047 (Mosaic combo-table occurrence field):
-            # lift the lane count for big inputs instead of shrinking
-            # runs below the priming-efficient range
             shards = int(os.environ.get("QVZ_TPU_DEVICE_LANES", "0")) or \
                 max(16, min(8192, max(n // 256, -(-n // 1536))))
         else:
@@ -170,8 +173,7 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
     data_dev = None
     if use_jax and mesh is None:
         # ONE h2d upload of the quality matrix, shared by the stats and
-        # quantize phases (transposes happen on device) — transfers are
-        # the device path's binding cost on narrow links.
+        # quantize phases (transposes happen on device).
         import jax
         data_dev = jax.device_put(data)
     t0 = time.perf_counter()
@@ -362,7 +364,7 @@ def _device_coder_encode(tables, data, clusters, cluster_arr, states,
                 cluster_arr[lo:hi])
 
     tim = {} if os.environ.get("QVZ_TPU_CODER_TIMINGS") else None
-    lane_pays, flags = coder_device.encode_lanes_raw(
+    lane_pays, flags = coder_device.encode_lanes(
         plan, md, qd, lane_counts, base, ctrip, timings=tim, mesh=mesh)
     if tim:
         for k, v in tim.items():
@@ -454,7 +456,7 @@ def _finish_encode(data, dist_matrix, clusters, cluster_arr, blocks, tables,
 
         device_coder = use_jax and _device_coder_enabled()
         if device_coder:
-            # Device-CODER production path (VERDICT r2 top item): the
+            # Device-CODER production path: the
             # accelerator quantizes AND entropy-codes every non-warmup
             # shard in parallel lanes (ops/coder_device.py); the
             # device->host transfer is the compressed payload itself,

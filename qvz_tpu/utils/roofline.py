@@ -1,17 +1,15 @@
-"""Device-utilization accounting: achieved bytes/s and FLOP/s per
-kernel vs the chip's peaks (VERDICT r2 missing item 3).
+"""Device-utilization accounting: achieved bytes/s per
+kernel vs the card's published peaks.
 
 The reference publishes no performance model at all (SURVEY §6), so
 this yardstick is the framework's own. The compressor's device kernels
-are gather/integer-ALU passes, not matmuls — the binding resource is
-HBM bandwidth, so the headline figure is pct_hbm_peak on explicit
-input+output traffic. A kernel can exceed 100% only if XLA kept
-intermediates in VMEM/registers (fusion), which is itself useful
-signal; FLOP utilization is reported for the one MXU-shaped kernel
-(k-means distances) for completeness.
+are gather/scatter/integer-ALU passes, not matmuls — the binding
+resource is device-memory bandwidth, so the headline figure is
+pct_hbm_peak on explicit input+output traffic.
 
-Peaks are keyed on jax.devices()[0].device_kind with a conservative
-'unknown' fallback; numbers are the public per-chip specs.
+Peaks are keyed on jax.devices()[0].device_kind; a device missing from
+the table is an error, not a default. The rates assume the card's full
+power limit: report its `power.limit` beside any share of them.
 """
 
 from __future__ import annotations
@@ -22,76 +20,43 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ChipPeaks:
     name: str
-    hbm_gbps: float        # HBM bandwidth, GB/s
-    bf16_tflops: float     # dense bf16 MXU peak, TFLOP/s
-    int8_tops: float       # dense int8 peak, TOP/s
-    # VPU integer-issue ceiling, Top/s. NOT a published spec: an
-    # order-of-magnitude architectural estimate (vector lanes x ALUs
-    # per lane x ~1 GHz clock, (8,128) lanes x 4 ALUs ~= 4.1e12/s per
-    # core) used only to place VPU-bound kernels on a roofline. Keep
-    # the label "est" wherever this is reported.
-    vpu_int_tops_est: float = 4.1
-    # MEASURED int32 issue ceilings (scripts/vpu_microbench.py on the
-    # real chip; None where never measured). Two regimes, both with
-    # loop-carried dependence + full ILP: register-resident chains
-    # (the absolute ALU ceiling) and the coder's actual regime —
-    # compare/select/add mixes streaming operands from VMEM, which
-    # issue ~1 vector op/cycle. Utilization of a table-sweep kernel
-    # should be judged against the second number.
-    vpu_int_tops_meas: float | None = None      # register-resident
-    vpu_sweep_tops_meas: float | None = None    # VMEM-operand mix
+    hbm_gbps: float        # device-memory bandwidth, GB/s
+    bf16_tflops: float     # dense bf16 tensor-core peak, TFLOP/s
+    int8_tops: float       # dense int8 tensor-core peak, TOP/s
 
 
+# NVIDIA H100 data sheet, dense rates (without sparsity).
 _PEAKS = {
-    # public spec-sheet numbers per chip (hbm/bf16/int8); v5e measured
-    # ceilings from build/vpu_microbench.json (2026-08-20: issue_addxor
-    # 7.3 / issue_cmpsel 6.2 Top/s register-resident; codermix_sel
-    # 117 Gelem/s x 9 ops = 1.05 Top/s VMEM-operand mix) — the round-4
-    # 4.1 estimate sat BETWEEN the two real regimes.
-    "TPU v5e": ChipPeaks("TPU v5e", 819.0, 197.0, 394.0,
-                         vpu_int_tops_meas=6.2,
-                         vpu_sweep_tops_meas=1.05),
-    "TPU v5 lite": ChipPeaks("TPU v5e", 819.0, 197.0, 394.0,
-                             vpu_int_tops_meas=6.2,
-                             vpu_sweep_tops_meas=1.05),
-    "TPU v5p": ChipPeaks("TPU v5p", 2765.0, 459.0, 918.0),
-    "TPU v4": ChipPeaks("TPU v4", 1228.0, 275.0, 275.0),
-    "TPU v6e": ChipPeaks("TPU v6e", 1640.0, 918.0, 1836.0),
+    "NVIDIA H100 80GB HBM3": ChipPeaks("H100 SXM", 3350.0, 989.0, 1979.0),
+    "NVIDIA H100 PCIe": ChipPeaks("H100 PCIe", 2000.0, 756.0, 1513.0),
 }
 
 
 def peaks_for(device_kind: str) -> ChipPeaks:
-    for key, p in _PEAKS.items():
-        if key.lower() in device_kind.lower():
-            return p
-    # CPU-backend / unknown: report against a nominal 100 GB/s so the
-    # ratio is still meaningful as a relative number, clearly labeled.
-    return ChipPeaks(f"unknown({device_kind})", 100.0, 1.0, 1.0, 0.1)
+    try:
+        return _PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {device_kind!r}; "
+            f"known: {sorted(_PEAKS)}") from None
 
 
-def utilization(bytes_moved: int, seconds: float, peaks: ChipPeaks,
-                flops: int = 0) -> dict:
+def utilization(bytes_moved: int, seconds: float,
+                peaks: ChipPeaks) -> dict:
     """Achieved rates + fraction of peak for one timed kernel pass.
 
-    bytes_moved: explicit kernel input + output bytes (HBM-side model;
-    VMEM-resident intermediates excluded by construction)."""
+    bytes_moved: explicit kernel input + output bytes (device-memory
+    model; intermediates kept on chip excluded by construction)."""
     gbs = bytes_moved / seconds / 1e9 if seconds > 0 else 0.0
-    out = {
+    return {
         "achieved_GB_s": round(gbs, 2),
         "pct_hbm_peak": round(100.0 * gbs / peaks.hbm_gbps, 2),
         "chip": peaks.name,
     }
-    if flops:
-        tf = flops / seconds / 1e12 if seconds > 0 else 0.0
-        out["achieved_TFLOP_s"] = round(tf, 3)
-        out["pct_mxu_peak_bf16"] = round(100.0 * tf / peaks.bf16_tflops,
-                                         3)
-    return out
 
 
 # --- per-kernel explicit-traffic models (bytes per pass) ---------------
-# Shapes follow bench.py's probes: N lines x C columns, K centroids,
-# W lanes x S steps for the coder.
+# N lines x C columns, K centroids.
 
 
 def hist_bytes(n: int, cols: int, n_clusters: int) -> int:
@@ -102,125 +67,11 @@ def hist_bytes(n: int, cols: int, n_clusters: int) -> int:
 
 
 def kmeans_bytes(n: int, cols: int, k: int) -> int:
-    # read data i32 (padded rows ~ n*cols), centroids i32; write
-    # assignment i32 (n) + centroid sums/counts i32.
-    return 4 * (n * cols + k * cols + n + k * cols + k)
-
-
-def kmeans_flops(n: int, cols: int, k: int) -> int:
-    # squared-L2 distances: n*k*cols multiply-adds (x2 flops)
-    return 2 * n * k * cols
+    # read data u8 (n*cols), centroids i32; write assignment i32 (n) +
+    # centroid sums/counts i32.
+    return n * cols + 4 * (k * cols + n + k * cols + k)
 
 
 def quantize_bytes(n: int, cols: int) -> int:
-    # read data_t i32 + draws i32; write model_ids/qs/qv i32.
-    return 4 * (2 * n * cols + 3 * n * cols)
-
-
-def coder_pass2_bytes(steps: int, lanes: int) -> int:
-    # read 3 u32 triple streams; write 2 u32 word streams + 2 flags.
-    return 4 * (3 + 2) * steps * lanes + 2 * steps * lanes
-
-
-def coder_fused_traffic(steps: int, lanes: int, slots: int,
-                        bstep: int = 1) -> tuple[int, int]:
-    """(hbm_bytes, vmem_bytes) for the fused coder kernel (v2).
-
-    HBM side: the per-step input streams (mid, qs i32 reads) and
-    output streams (w0, w1, fl i32 writes) — 5 words per step-lane —
-    plus a per-column table DMA (negligible, omitted).
-
-    VMEM side: the (slots, lanes) i32 combo counts table is swept by
-    ONE read pass and ONE write pass per batch of `bstep` steps — all
-    three masked range-sums of every step in a batch share the single
-    chunk read (coder_pallas._kernel2's chunk loop), and the eq-update
-    write-back is batched the same way. Round-3's model charged four
-    passes per STEP, which overcounted by ~2*bstep and produced
-    pct_hbm_peak > 100% in BENCH telemetry — the table never touches
-    HBM at all.
-    """
-    hbm = 5 * 4 * steps * lanes
-    vmem = 2 * slots * 4 * lanes * (steps // max(bstep, 1))
-    return hbm, vmem
-
-
-def coder_fused_int_ops(steps: int, lanes: int, slots: int,
-                        bstep: int = 1, m_pad: int = 0) -> int:
-    # Round-5 packed select kernel (coder_pallas._kernel3): per swept
-    # slot element per step the totals form issues ~8 VPU integer ops
-    # (key delta, unsigned below compare, select, accumulate, eq
-    # compare, select, accumulate, eq-update cast) plus the shared
-    # write-back add per batch; the owner-sweep form (m_pad == 0) adds
-    # the owner compare + select + accumulate (~11). The totals
-    # side-table pass costs ~4 ops per model-row element. NOTE this is
-    # an UPPER BOUND on ops actually issued: the kernel sweeps only
-    # [slot_base(min mid), sbc(max mid)) per block (data-dependent),
-    # so report utilization as "<=" against the sweep-regime ceiling.
-    per_slot = 8 if m_pad else 11
-    ops = steps * lanes * slots * per_slot
-    if m_pad:
-        ops += steps * lanes * m_pad * 4
-    return ops + (steps // max(bstep, 1)) * lanes * (slots + m_pad)
-
-
-def fused_utilization(hbm_bytes: int, vmem_bytes: int, int_ops: int,
-                      seconds: float, peaks: ChipPeaks) -> dict:
-    """Roofline placement for a VMEM-resident fused kernel.
-
-    Reports the true HBM-stream utilization (tiny by design — the
-    whole point of fusing), the VMEM working-set sweep rate, and the
-    achieved integer-issue rate vs the architectural VPU estimate.
-    The largest of the two pct figures names the binding resource."""
-    if seconds <= 0:
-        return {"chip": peaks.name}
-    hbm_gbs = hbm_bytes / seconds / 1e9
-    vmem_gbs = vmem_bytes / seconds / 1e9
-    tops = int_ops / seconds / 1e12
-    out = {
-        "hbm_GB_s": round(hbm_gbs, 2),
-        "pct_hbm_peak": round(100.0 * hbm_gbs / peaks.hbm_gbps, 2),
-        "vmem_sweep_GB_s": round(vmem_gbs, 2),
-        "int_Top_s": round(tops, 3),
-        "pct_vpu_est": round(100.0 * tops / peaks.vpu_int_tops_est, 1),
-        "chip": peaks.name,
-    }
-    if peaks.vpu_int_tops_meas:
-        out["pct_vpu_meas"] = round(
-            100.0 * tops / peaks.vpu_int_tops_meas, 1)
-    if peaks.vpu_sweep_tops_meas:
-        # vs the MEASURED VMEM-operand mix ceiling (the kernel's true
-        # regime); int_ops is an upper bound (block slot bounds), so
-        # this can legitimately exceed 100 when bounds bite — report
-        # for the record, interpretation in SCALING.md
-        out["pct_sweep_regime"] = round(
-            100.0 * tops / peaks.vpu_sweep_tops_meas, 1)
-    return out
-
-
-def decoder_fused_traffic(steps: int, lanes: int, slots: int,
-                          bisect: int = 2, p_pad: int = 128,
-                          window_words: int = 256) -> tuple[int, int]:
-    # (hbm_bytes, vmem_bytes) for the decode kernel. VMEM side, per
-    # step per lane: the combo counts table swept by (1 owner pass +
-    # `bisect` bisection passes + 1 eq pass with a write-back), the
-    # ctx table pass over p_pad, the symbol table inside the eq pass,
-    # and the payload-window refill sweep (cursor-window bounded; pass
-    # the full PW when the window is disabled). HBM side: the decoded
-    # symbol writes (1 i32 per step-lane). Unlike the encoder there is
-    # no per-step batching — each symbol's bisection depends on the
-    # previous one — which is why its measured rate sits ~50x below
-    # the coder's (ROADMAP: kernel demoted to experiment).
-    per_lane = ((2 + bisect) * slots * 4    # counts reads
-                + slots * 4                 # counts write-back
-                + slots * 4                 # symw in the eq pass
-                + 2 * p_pad * 4             # pta/ptb ctx pass
-                + window_words * 4)         # payload refill window
-    return 4 * steps * lanes, steps * lanes * per_lane
-
-
-def coder_pass1_bytes(cols: int, lanes: int, lane_len: int,
-                      slots: int) -> int:
-    # read mid/qs i32; write 3 u32 triples. The (W, L, S) one-hot
-    # cumsum intermediates are the real HBM traffic when XLA
-    # materializes them — reported separately by the caller if needed.
-    return 4 * (2 + 3) * cols * lanes * lane_len
+    # read data + draws u8; write model_ids/qs/qv i32.
+    return 2 * n * cols + 4 * 3 * n * cols

@@ -1,14 +1,10 @@
-"""Host-thread scaling curve for the C++ coder (VERDICT r4 item 3).
+"""Host-thread scaling curve for the C++ coder.
 
-SCALING.md's v5p-16 projection multiplies a measured per-thread coder
-rate (35-40 MB/s after round 2) by ~180 threads/host; the claim of
-near-linear scaling was never validated beyond this host's 4 vCPUs.
-This script measures the curve that IS measurable here: end-to-end
-sharded encode + decode wall at 1..4 cores (taskset affinity —
-std::thread::hardware_concurrency respects sched_getaffinity on this
-glibc, and even where it would not, N pinned cores timesharing more
-threads still measures N-core throughput). Per-core efficiency vs the
-1-core leg is the linearity evidence the projection needs.
+Measures end-to-end sharded encode + decode wall at 1..N cores
+(taskset affinity — std::thread::hardware_concurrency respects
+sched_getaffinity on glibc, and even where it would not, N pinned cores
+timesharing more threads still measures N-core throughput). Per-core
+efficiency vs the 1-core leg says how linearly the host engine scales.
 
 Runs each leg in a fresh subprocess (interpreter + C++ runtime load
 outside the timed region), best-of-3, writes build/host_scaling.json.

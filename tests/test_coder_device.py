@@ -2,9 +2,9 @@
 containers vs the host coder across configs, plus exactness unit tests
 for the no-64-bit division and the replay feeder.
 
-The real-accelerator run of the same kernels is gated in
-tests/test_tpu_onchip.py; here they execute on the forced-CPU XLA
-backend (conftest), which shares the HLO-level integer semantics."""
+Here the XLA scan runs on the forced-CPU backend (conftest), which
+shares the HLO-level integer semantics; chip_smoke.py runs the same
+path on the card."""
 
 import os
 
@@ -100,7 +100,7 @@ CONFIGS = [
 @pytest.mark.parametrize("cfg", CONFIGS)
 def test_device_coder_byte_equal(cfg):
     """The device-coder container must be byte-identical to the host
-    path for the same shard plan (VERDICT r2 next-round item 1)."""
+    path for the same shard plan."""
     data = _mkdata(4000, 24, seed=11)
     host = _encode(data, use_jax=False, **cfg)
     os.environ["QVZ_TPU_DEVICE_MIN_BYTES"] = "0"
@@ -159,88 +159,52 @@ def test_device_coder_decodes():
     assert np.array_equal(out[:, :20], dev.reconstructed + 33)
 
 
-def test_device_coder_mosaic_interpret_byte_equal():
-    """The v2 Mosaic kernel (in-kernel table replay, coder_pallas.
-    _kernel2) through the Pallas interpreter: container byte-identical
-    to the host coder, including a cluster-id segment. The compiled
-    on-chip run of the same path is gated in test_tpu_onchip."""
+def test_device_coder_clusters_byte_equal():
+    """Device coder with a cluster-id segment (explicit host-replayed
+    triples ahead of the column steps): container byte-identical to
+    the host coder."""
     data = _mkdata(3000, 20, seed=3)
     cfg = dict(shards=4, n_clusters=2)
     host = _encode(data, use_jax=False, **cfg)
-    os.environ["QVZ_TPU_DEVICE_MIN_BYTES"] = "0"
-    os.environ["QVZ_TPU_CODER_PALLAS"] = "interpret"
-    try:
-        dev = _encode(data, use_jax=True, **cfg)
-    finally:
-        del os.environ["QVZ_TPU_DEVICE_MIN_BYTES"]
-        del os.environ["QVZ_TPU_CODER_PALLAS"]
+    dev = _encode(data, use_jax=True, **cfg)
     assert dev.compressed == host.compressed
+    assert dev.stats.coder_fallback_lanes == 0
 
 
-def test_device_coder_lane_group_split(monkeypatch):
-    """encode_lanes_raw's wider-than-VMEM branch: when lane_group
-    returns less than the padded lane width, the kernel runs per lane
-    group and the concatenated carries/payloads must still be
-    byte-identical to the host coder. Forced here by capping
-    lane_group at one 128-lane tile (interpret mode; the uncapped
-    on-chip equivalent is the 512-lane probe in test_tpu_onchip)."""
-    from qvz_tpu.ops import coder_pallas
-
-    real_group = coder_pallas.lane_group
-
-    def capped(W, S, *a, **kw):
-        g = real_group(W, S, *a, **kw)
-        return min(g, 128) if g else 0
-
-    monkeypatch.setattr(coder_pallas, "lane_group", capped)
-    # 10 shards -> W=10 lanes -> Wb=16... still one 128 tile; the
-    # group split needs Wb > 128, so cap to a sub-tile instead: run
-    # with enough shards that Wb = 256 > wg = 128.
+def test_device_coder_many_lanes():
+    """130 lanes of 32 lines: wider than any one lane tile, so the
+    lane layout and per-lane payload assembly see many lanes."""
     data = _mkdata(4096, 8, seed=11)
     cfg = dict(shards=130, prime=False)
     host = _encode(data, use_jax=False, **cfg)
-    monkeypatch.setenv("QVZ_TPU_DEVICE_MIN_BYTES", "0")
-    monkeypatch.setenv("QVZ_TPU_CODER_PALLAS", "interpret")
     dev = _encode(data, use_jax=True, **cfg)
     assert dev.compressed == host.compressed
 
 
-@pytest.mark.parametrize("batch", [2, 8])
-def test_device_coder_step_batching_byte_equal(batch, monkeypatch):
-    """QVZ_TPU_CODER_BATCH=B shares one counts-table pass across B
-    coding steps with exact intra-batch pair corrections; the container
-    must stay byte-identical to the host coder for any B. Data is
-    low-entropy (near-constant columns) so same-model collisions inside
-    a batch — the corrected case — are dense, plus a cluster segment."""
-    rng = np.random.default_rng(21)
-    n, cols = 4000, 12
-    data = np.clip(30 + rng.integers(-1, 2, size=(n, cols)).cumsum(1),
+def _low_entropy(seed, n=4000, cols=12):
+    rng = np.random.default_rng(seed)
+    return np.clip(30 + rng.integers(-1, 2, size=(n, cols)).cumsum(1),
                    0, 71).astype(np.uint8)
-    cfg = dict(shards=4, n_clusters=2)
+
+
+@pytest.mark.parametrize("prime", [True, False])
+def test_device_coder_low_entropy_byte_equal(prime):
+    """Low-entropy data (near-constant columns): the same model recurs
+    step after step, so the carried occurrence counts grow fastest.
+    Plus a cluster segment; primed and unprimed banks."""
+    data = _low_entropy(21)
+    cfg = dict(shards=4, n_clusters=2, prime=prime)
     host = _encode(data, use_jax=False, **cfg)
-    monkeypatch.setenv("QVZ_TPU_DEVICE_MIN_BYTES", "0")
-    monkeypatch.setenv("QVZ_TPU_CODER_PALLAS", "interpret")
-    monkeypatch.setenv("QVZ_TPU_CODER_BATCH", str(batch))
     dev = _encode(data, use_jax=True, **cfg)
     assert dev.compressed == host.compressed
 
 
-@pytest.mark.parametrize("totals", ["0", "1"])
-def test_device_coder_totals_variant_byte_equal(totals, monkeypatch):
-    """Both kernel forms — the owner-sweep original and the round-4
-    totals side-table variant (QVZ_TPU_CODER_TOTALS, the default) —
-    must emit containers byte-identical to the host coder. Pinning the
-    env keeps the non-default form covered whichever way the default
-    points. Low-entropy data + clusters + priming so intra-batch
-    same-model corrections and the cluster prologue both engage."""
-    rng = np.random.default_rng(33)
-    n, cols = 4000, 12
-    data = np.clip(30 + rng.integers(-1, 2, size=(n, cols)).cumsum(1),
-                   0, 71).astype(np.uint8)
-    cfg = dict(shards=5, n_clusters=3)
+@pytest.mark.parametrize("ratio", [0.3, 0.9])
+def test_device_coder_low_entropy_three_clusters(ratio):
+    """Three clusters over low-entropy data at a low and a high rate
+    (few vs many slots per column), priming on."""
+    data = _low_entropy(33)
+    cfg = dict(shards=5, n_clusters=3, ratio=ratio)
     host = _encode(data, use_jax=False, **cfg)
-    monkeypatch.setenv("QVZ_TPU_DEVICE_MIN_BYTES", "0")
-    monkeypatch.setenv("QVZ_TPU_CODER_PALLAS", "interpret")
-    monkeypatch.setenv("QVZ_TPU_CODER_TOTALS", totals)
     dev = _encode(data, use_jax=True, **cfg)
     assert dev.compressed == host.compressed

@@ -2,8 +2,7 @@
 the host decoder across configs, plus the exactness fallbacks.
 
 Decode twin of test_coder_device.py — runs on the forced-CPU XLA
-backend (conftest); the real-accelerator run is gated in
-tests/test_tpu_onchip.py."""
+backend (conftest); chip_smoke.py runs the same path on the card."""
 
 import numpy as np
 import pytest
@@ -155,46 +154,37 @@ def test_mul64_20x22_exhaustive_random():
     assert np.array_equal(got, want)
 
 
-def test_mosaic_decode_interpret_byte_equal(monkeypatch):
-    """The Mosaic decode kernel (ops/decoder_pallas.py) through the
-    Pallas interpreter: output byte-identical to the host decoder,
-    including a cluster prologue with a non-trivial bit-offset takeover
-    state and a non-block-aligned line count (the pad-step path). The
-    compiled on-chip run of the same path is gated in test_tpu_onchip."""
-    from qvz_tpu.ops import decoder_pallas
+def _spy_decode_lanes(monkeypatch):
+    from qvz_tpu.ops import decoder_device as dd
 
-    calls = []
-    real = decoder_pallas.decode_scan_tables
+    shapes = []
+    real = dd.decode_lanes
 
-    def spy(*a, **k):
-        calls.append(a[0].shape)
-        return real(*a, **k)
+    def spy(dplan, payloads, draws, cl, states, **k):
+        shapes.append(draws.shape)
+        return real(dplan, payloads, draws, cl, states, **k)
 
-    monkeypatch.setattr(decoder_pallas, "decode_scan_tables", spy)
-    monkeypatch.setenv("QVZ_TPU_DEC_PALLAS", "interpret")
+    monkeypatch.setattr(dd, "decode_lanes", spy)
+    return shapes
+
+
+def test_device_decode_prologue_ragged(monkeypatch):
+    """A cluster prologue with a non-trivial bit-offset takeover state
+    and a ragged last lane (its own lane group): output byte-identical
+    to the host decoder."""
+    shapes = _spy_decode_lanes(monkeypatch)
     data = _mkdata(4001, 14, seed=23)  # 5 shards -> ragged last lane
     comp = _encode(data, shards=5, n_clusters=2, prime=False).compressed
     host = dec_mod.decode(comp)
     dev = dec_mod.decode(comp, device=True)
     assert np.array_equal(dev, host)
-    assert len(calls) >= 1, "Mosaic kernel path not engaged"
+    assert len(shapes) == 2, shapes
 
 
-def test_mosaic_decode_interpret_primed(monkeypatch):
-    """Primed lanes through the kernel: the init-count tables derive
-    from the warmup bank, and every lane's takeover state starts at
-    bit 22."""
-    from qvz_tpu.ops import decoder_pallas
-
-    calls = []
-    real = decoder_pallas.decode_scan_tables
-
-    def spy(*a, **k):
-        calls.append(1)
-        return real(*a, **k)
-
-    monkeypatch.setattr(decoder_pallas, "decode_scan_tables", spy)
-    monkeypatch.setenv("QVZ_TPU_DEC_PALLAS", "interpret")
+def test_device_decode_primed_16_lanes(monkeypatch):
+    """Primed lanes: the init-count tables derive from the warmup
+    bank, and every lane's takeover state starts at bit 22."""
+    shapes = _spy_decode_lanes(monkeypatch)
     data = _mkdata(24000, 10, seed=29)
     comp = _encode(data, shards=16, prime=True).compressed
     from qvz_tpu.format import container_v2
@@ -202,23 +192,10 @@ def test_mosaic_decode_interpret_primed(monkeypatch):
     host = dec_mod.decode(comp)
     dev = dec_mod.decode(comp, device=True)
     assert np.array_equal(dev, host)
-    assert calls
+    assert shapes
 
 
-def test_mosaic_decode_lane_group_split(monkeypatch):
-    """decode_lanes' wider-than-VMEM branch: lane_group capped below
-    the padded width forces per-group kernel runs; concatenated
-    outputs must still match the host decoder."""
-    from qvz_tpu.ops import decoder_pallas
-
-    real_group = decoder_pallas.lane_group
-
-    def capped(W, S, PW, Lp, p_pad):
-        g = real_group(W, S, PW, Lp, p_pad)
-        return min(g, 128) if g else 0
-
-    monkeypatch.setattr(decoder_pallas, "lane_group", capped)
-    monkeypatch.setenv("QVZ_TPU_DEC_PALLAS", "interpret")
+def test_device_decode_130_lanes():
     data = _mkdata(4160, 6, seed=31)
     comp = _encode(data, shards=130, prime=False).compressed
     host = dec_mod.decode(comp)
@@ -280,17 +257,14 @@ def _synth_skewed(n, cols, seed, kind):
     ("saturated", dict(shards=3, n_clusters=1, ratio=0.9)),
     ("uniform", dict(shards=4, n_clusters=3, ratio=0.3)),
 ])
-def test_device_decode_pathological_shapes(kind, cfg, monkeypatch):
-    """Both device decode paths (XLA scan and Mosaic-interpret kernel)
-    must reproduce the host decoder on pathological data shapes."""
+def test_device_decode_pathological_shapes(kind, cfg):
+    """The device decode scan must reproduce the host decoder on
+    pathological data shapes."""
     data = _synth_skewed(2400, 12, 47, kind)
     comp = _encode(data, prime=False, **cfg).compressed
     host = dec_mod.decode(comp)
     dev = dec_mod.decode(comp, device=True)
     assert np.array_equal(dev, host)
-    monkeypatch.setenv("QVZ_TPU_DEC_PALLAS", "interpret")
-    devk = dec_mod.decode(comp, device=True)
-    assert np.array_equal(devk, host)
 
 
 def _rebuild(comp, mutate_payloads):
@@ -315,7 +289,7 @@ def _rebuild(comp, mutate_payloads):
         order=head.order, priming=head.priming)
 
 
-def test_device_decode_truncated_payload_raises(monkeypatch):
+def test_device_decode_truncated_payload_raises():
     """A payload truncated to a quarter (with a CONSISTENT directory
     and checksum) makes the host decoder raise ValueError via the
     BitReader overrun fail-fast; the device path must converge on the
@@ -330,9 +304,6 @@ def test_device_decode_truncated_payload_raises(monkeypatch):
                     truncate_last)
     with pytest.raises(ValueError):
         dec_mod.decode(comp)
-    with pytest.raises(ValueError):
-        dec_mod.decode(comp, device=True)
-    monkeypatch.setenv("QVZ_TPU_DEC_PALLAS", "interpret")
     with pytest.raises(ValueError):
         dec_mod.decode(comp, device=True)
 
@@ -361,41 +332,26 @@ def test_corrupt_warmup_shard_raises_not_hangs():
         dec_mod.decode(comp, device=True)
 
 
-def test_mosaic_decode_multiplane_lanes(monkeypatch):
-    """w8 >= 2 (more than 128 lanes in ONE kernel call): exercises the
-    per-plane table widening / counts reset loops and (sc, w8, 128)
-    masked sums, which every narrower test leaves at w8 == 1."""
-    from qvz_tpu.ops import decoder_pallas
-
-    shapes = []
-    real = decoder_pallas._run
-
-    def spy(*a, **k):
-        shapes.append(a[0].shape)
-        return real(*a, **k)
-
-    monkeypatch.setattr(decoder_pallas, "_run", spy)
-    monkeypatch.setenv("QVZ_TPU_DEC_PALLAS", "interpret")
-    monkeypatch.setenv("QVZ_TPU_DEC_WAVE", "200")
+def test_device_decode_one_wave(monkeypatch):
+    """140 lanes decode in ONE wave by default (waves are sized by
+    symbols, not lanes)."""
+    shapes = _spy_decode_lanes(monkeypatch)
     data = _mkdata(4480, 4, seed=43)  # 140 shards x 32 lines
     comp = _encode(data, shards=140, prime=False).compressed
     host = dec_mod.decode(comp)
     dev = dec_mod.decode(comp, device=True)
     assert np.array_equal(dev, host)
-    assert shapes and max(s[1] for s in shapes) > 128, \
-        f"multi-plane path not engaged: {shapes}"
+    assert [s[1] for s in shapes] == [140], shapes
 
 
-def test_mosaic_decode_window_disabled(monkeypatch):
-    """QVZ_TPU_DEC_WINDOW=0 compiles the full payload sweep instead of
-    the cross-lane cursor window (the fallback if rank-0 vector
-    reductions turn out NYI in compiled Mosaic); both must match the
-    host decoder."""
-    monkeypatch.setenv("QVZ_TPU_DEC_PALLAS", "interpret")
+def test_device_decode_wave_override(monkeypatch):
+    """QVZ_TPU_DEC_WAVE caps the lanes per wave; each wave pads its
+    payload words to the same bucket, and the output still matches
+    the host decoder."""
+    shapes = _spy_decode_lanes(monkeypatch)
+    monkeypatch.setenv("QVZ_TPU_DEC_WAVE", "3")
     data = _mkdata(3000, 10, seed=53)
-    comp = _encode(data, shards=4, n_clusters=2, prime=False).compressed
+    comp = _encode(data, shards=8, n_clusters=2, prime=False).compressed
     host = dec_mod.decode(comp)
-    monkeypatch.setenv("QVZ_TPU_DEC_WINDOW", "0")
     assert np.array_equal(dec_mod.decode(comp, device=True), host)
-    monkeypatch.setenv("QVZ_TPU_DEC_WINDOW", "1")
-    assert np.array_equal(dec_mod.decode(comp, device=True), host)
+    assert [s[1] for s in shapes] == [3, 3, 1, 1], shapes

@@ -1,7 +1,7 @@
 """Multi-host driver determinism: N worker processes must produce a
-container byte-equal to the single-process QVZ2 encode (VERDICT r1 next
-item 2; SURVEY §2b item 3 — the distributed replacement for the
-single-process loop qv_compressor.c:48-143)."""
+container byte-equal to the single-process QVZ2 encode (SURVEY §2b
+item 3 — the distributed replacement for the single-process loop
+qv_compressor.c:48-143)."""
 
 import numpy as np
 import pytest
@@ -87,8 +87,8 @@ def test_multihost_decode_byte_equal(qfile, tmp_path, n_hosts):
 
 
 def test_multihost_recon_file(qfile, tmp_path):
-    """-u under --hosts (VERDICT r3 missing item 4): the multi-host
-    reconstruction side-file must byte-equal the single-process one
+    """-u under --hosts: the multi-host reconstruction side-file must
+    byte-equal the single-process one
     (reference writes it in every encode mode, qv_compressor.c:100-103;
     here workers memmap-write their row ranges)."""
     from qvz_tpu.spec.pipeline import lines_to_bytes
@@ -109,7 +109,7 @@ def test_multihost_recon_file(qfile, tmp_path):
 
 @pytest.mark.parametrize("n_clusters", [1, 2])
 def test_multihost_streaming_byte_equal(qfile, tmp_path, n_clusters):
-    """streaming x multihost composition (VERDICT r3 item 7): workers
+    """streaming x multihost composition: workers
     stream their row ranges in small chunks (chunked k-means + stats,
     per-shard materialization, payload spill files) and the coordinator
     assembles the container straight to disk — byte-identical to the
@@ -137,7 +137,7 @@ def test_multihost_streaming_byte_equal(qfile, tmp_path, n_clusters):
 
 
 # ---------------------------------------------------------------------------
-# Chaos tests (VERDICT r4 item 7): a >=1 GB --hosts 2 --streaming encode
+# Chaos tests: a >=1 GB --hosts 2 --streaming encode
 # must fail CLEAN — actionable error, no partial container, no leaked
 # spill files — under an injected worker death and an injected truncated
 # shard payload. The reference has no failure detection at all (errors

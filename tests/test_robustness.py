@@ -79,8 +79,8 @@ def test_flipped_codebook_bytes_detected(containers):
 
 def test_v2_payload_corruption_detected(containers):
     """QVZ2 integrity extension: flipping ANY payload byte must produce a
-    clean checksum error (the reference silently mis-decodes; VERDICT r1
-    weak item 6)."""
+    clean checksum error (the reference silently
+    mis-decodes)."""
     from qvz_tpu.format import container_v2
     from qvz_tpu.native import runtime as rt
 

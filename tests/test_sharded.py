@@ -167,8 +167,8 @@ def test_device_quantize_production_path_byte_equal(mesh8):
 
 
 def test_mesh_device_coder_byte_equal(mesh8, monkeypatch):
-    """The device CODER composes with a mesh (VERDICT r3 item 9 /
-    round-4 feature): quantize shards over reads, the fused coder
+    """The device CODER composes with a mesh (round-4
+    feature): quantize shards over reads, the fused coder
     scan shard_maps over the LANE axis (independent adaptive streams,
     no collectives), and the container is byte-identical to the host
     fused path. Uneven shard plan (13 shards over 6007 lines) + lane
@@ -198,15 +198,15 @@ def test_mesh_device_coder_byte_equal(mesh8, monkeypatch):
     assert np.array_equal(out[:, :cols] - 33, host.reconstructed)
 
 
-def test_mesh_device_coder_kernel_interpret(mesh8, monkeypatch):
-    """The Mosaic kernel branch under shard_map (interpret mode on the
-    CPU mesh): per-device lane groups, byte-identical containers."""
+def test_mesh_device_coder_unprimed_two_clusters(mesh8):
+    """The mesh lane coder with a cluster-id segment and no priming
+    (every lane starts from the initial bank): per-device lane subsets,
+    byte-identical containers, no fallback lanes."""
     from qvz_tpu.constants import DISTORTION_MSE
     from qvz_tpu.ops.distortion import make_matrix
     from qvz_tpu.ops.well import WellState
     from qvz_tpu.pipeline import encode as enc_mod
 
-    monkeypatch.setenv("QVZ_TPU_CODER_PALLAS", "interpret")
     rng = np.random.default_rng(11)
     n, cols = 2003, 21
     start = rng.integers(20, 45, size=(n, 1))

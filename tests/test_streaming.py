@@ -63,7 +63,7 @@ def test_streaming_roundtrip(qfile, tmp_path):
 
 def test_streaming_recon_u(qfile, tmp_path):
     """-u in the streaming path: the memmapped reconstruction file must
-    be byte-equal to the in-memory path's (VERDICT r2 weak item 5)."""
+    be byte-equal to the in-memory path's."""
     from qvz_tpu.spec.pipeline import lines_to_bytes
 
     path, data = qfile
@@ -83,7 +83,7 @@ def test_streaming_recon_u(qfile, tmp_path):
 
 def test_parse_payload_limit(qfile, tmp_path):
     """Directory parse from a prefix of a big container: payload extents
-    validate against the real file size (ADVICE r2: the multihost 1 MB
+    validate against the real file size (the multihost 1 MB
     header fast path must not force a full in-memory copy)."""
     from qvz_tpu.format import container_v2
     from qvz_tpu.native import runtime as rt
@@ -135,8 +135,8 @@ def test_streaming_reuse_books(qfile, tmp_path):
 def test_streaming_device_path_byte_equal(qfile, tmp_path):
     """use_jax=True streaming (device chunked stats + per-shard device
     quantize, host adaptive streams) emits the same container bytes and
-    -u reconstruction as the host streaming path (VERDICT r3 item 4:
-    the device passes wired into the bounded-RSS pipeline)."""
+    -u reconstruction as the host streaming path (the
+    device passes wired into the bounded-RSS pipeline)."""
     path, data = qfile
     dist = make_matrix(DISTORTION_MSE)
     host_q = tmp_path / "h.q"
